@@ -17,8 +17,8 @@ moves for PIQMC and local-only classical SA; this framework adds
 This demo runs each against a plain-SA baseline at small budgets and
 prints residual energies. For where cluster updates actually pay (and
 where they don't — they lose on this spin-glass instance at equal
-wall-clock because FK clusters percolate), see
-results/cluster_value/{summary.json,crossover.json}.
+wall-clock because FK clusters percolate), run
+montecarlosolvers_tpu/bench/cluster_value.py and cluster_crossover.py.
 
 Usage:
     python examples/cluster_and_pt.py [--tau 1000] [--chains 8]
@@ -29,9 +29,6 @@ import argparse
 
 import numpy as np
 import jax
-
-jax.config.update("jax_default_prng_impl", "rbg")
-
 import jax.numpy as jnp
 
 from montecarlosolvers_tpu.models import instances

@@ -1,4 +1,4 @@
-"""Migration demo: reference-style code on the TPU-native framework.
+"""Migration demo: reference-style code on the JAX framework.
 
 The body below is written the way a user of the reference package writes
 their driver (tools.GenerateNeighbors + in-place kernel calls,

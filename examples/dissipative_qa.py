@@ -21,9 +21,6 @@ import time
 
 import numpy as np
 import jax
-
-jax.config.update("jax_default_prng_impl", "rbg")
-
 import jax.numpy as jnp
 
 from montecarlosolvers_tpu.models import instances

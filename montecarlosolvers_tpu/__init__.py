@@ -1,23 +1,23 @@
-"""montecarlosolvers_tpu — TPU-native Monte Carlo annealing solvers for Ising Hamiltonians.
+"""montecarlosolvers_tpu — Monte Carlo annealing solvers for Ising Hamiltonians.
 
-A ground-up JAX/XLA/Pallas re-design of the capability surface of
+A ground-up JAX/XLA re-design of the capability surface of
 dtoconnor/MonteCarloSolvers (Cython/OpenMP reference): classical simulated
 annealing, spin-vector Monte Carlo, and Martonak–Santoro–Tosatti path-integral
 quantum Monte Carlo with system–bath dissipation and Wolff / Swendsen-Wang
 cluster updates.
 
-Design principles (TPU-first, not a port):
+Design principles (accelerator-first, not a port):
   * All state is functional — solvers take a spin state and return a new one
     (the reference mutates NumPy arrays in place, e.g. sa.pyx:44-46).
   * The sequential shuffled Metropolis sweep of the reference (sa.pyx:71-99)
     becomes a graph-colored parallel sweep: statistically equivalent sampler,
-    race-free by construction, massively vectorizable on the VPU.
+    race-free by construction, massively vectorizable.
   * Annealing schedules are arrays scanned by `lax.scan` — one jitted loop per
     anneal (the reference's host-side schedule loop, sa.pyx:66).
-  * RNG is counter-based (threefry keys / on-chip TPU PRNG inside Pallas),
+  * RNG is counter-based (threefry keys),
     replacing libc rand() (sa.pyx:76) — deterministic, splittable streams.
   * Independent annealing trajectories ("reads", svmc.pyx:624) are a vmap
-    axis; chips are a `jax.sharding.Mesh` data axis; the Trotter replica axis
+    axis; devices are a `jax.sharding.Mesh` data axis; the Trotter replica axis
     of PIQMC can be sharded over a mesh axis with `ppermute` ring exchange.
 """
 

@@ -58,7 +58,7 @@ def main(argv=None):
                     help="treat as an L x L lattice (roll fast path)")
     sp.add_argument("--out", default=None, help="write samples to .npz")
 
-    bp = sub.add_parser("bench", help="run the throughput benchmark")
+    sub.add_parser("bench", help="run the throughput benchmark (GPU only)")
 
     args = ap.parse_args(argv)
 
@@ -77,10 +77,12 @@ def main(argv=None):
         spec = importlib.util.spec_from_file_location("mcs_bench", path)
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
-        mod.main()
-        return 0
+        return mod.main()
 
     from montecarlosolvers_tpu.solvers.api import solve
+    from montecarlosolvers_tpu.utils.xla_cache import enable_persistent_cache
+
+    enable_persistent_cache()
 
     problem = _build_problem(args)
     kw = (dict(slices=args.slices)

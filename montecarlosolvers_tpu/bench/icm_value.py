@@ -1,13 +1,12 @@
 """ICM value experiment (round 5; VERDICT r4 missing #1).
 
-results/pt_value measured ICM (Houdayer cluster moves + parallel
-tempering, solvers/pt.sample_icm) on the 2D santoro benchmark and found
-the cluster phases cost ~85x the sweeps they accompany while the 2D
-landscape never rewards them. The spin-glass literature's claim
+bench/pt_value.py measures ICM (Houdayer cluster moves + parallel
+tempering, solvers/pt.sample_icm) on the 2D santoro benchmark, a
+landscape where the cluster phases are not expected to pay. The spin-glass literature's claim
 (Houdayer 2001; Zhu, Ochoa, Katzgraber 2015) is that the moves pay on
 3D Edwards-Anderson-class landscapes — valleys separated by system-wide
 droplets that local+exchange dynamics cannot cross. This experiment
-measures that claim on TPU at equal WALL-CLOCK:
+measures that claim on the accelerator at equal WALL-CLOCK:
 
   * Instances: 3D EA +/-J, L in {8, 10, 12, 14} periodic
     (models/instances.random_3d_lattice), several disorder seeds with

@@ -3,7 +3,7 @@
 Following the cluster_value / pt_value precedent ("the capability
 exists; its value is undemonstrated"), this measures whether PA's
 resampling earns its cost on the certified santoro 80x80 instance, on
-TPU, at equal budget — against the same baselines pt_value used, at the
+the accelerator, at equal budget — against the same baselines pt_value used, at the
 same cold temperature, so all three studies cross-compare.
 
 1. SAMPLING at T_cold = 0.5 (pt_value's target): R quenched chains run
@@ -244,7 +244,7 @@ def v2_arms(problem, e_gs, key, done, record):
         jax.block_until_ready(states)
         t0 = _t.time()
         states, log_z, stats = run()
-        float(jnp.sum(states[..., 0]))
+        jax.block_until_ready(states)
         wall = _t.time() - t0
         es = np.asarray(problem.energy(states))
         return dict(
@@ -283,7 +283,7 @@ def v2_arms(problem, e_gs, key, done, record):
         jax.block_until_ready(states)
         t0 = _t.time()
         states, log_z, stats = run()
-        float(jnp.sum(states[..., 0]))
+        jax.block_until_ready(states)
         wall = _t.time() - t0
         es = np.asarray(problem.energy(states))
         return dict(
@@ -418,7 +418,7 @@ def v2_arms(problem, e_gs, key, done, record):
         jax.block_until_ready(out)
         t0 = _t.time()
         out, log_z, stats = run()
-        float(jnp.sum(out[..., 0, 0]))
+        jax.block_until_ready(out)
         wall = _t.time() - t0
         es = np.asarray(qmc.best_slice_energy(problem, out))
         return dict(

@@ -5,7 +5,8 @@ family (the reference has no replica-exchange component; SURVEY.md §2.3
 lists its complete parallelism inventory). Following the cluster_value
 precedent (VERDICT r3 #2: "the capability exists; its value is
 undemonstrated"), this experiment measures whether PT actually earns its
-rungs on the certified santoro 80x80 instance, on TPU, at equal budget.
+rungs on the certified santoro 80x80 instance, on the accelerator, at
+equal budget.
 
 Two claims are tested, matching PT's two textbook use cases:
 

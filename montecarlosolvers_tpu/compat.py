@@ -14,7 +14,7 @@ original name and signature, including the reference's conventions:
 numpy Generator/RandomState in place of the reference's implicit libc
 stream; omitted means a fresh nondeterministic seed.
 
-Under the hood everything runs on the TPU-native solvers — colored
+Under the hood everything runs on the JAX solvers — colored
 parallel sweeps, counter-based RNG (statistically equivalent samplers;
 see solvers/ and ops/cluster.py docstrings for documented deviations).
 """

@@ -3,7 +3,7 @@
 The reference's Metropolis kernels update spins one at a time in a shuffled
 sequential order (Fisher-Yates at sa.pyx:71-79) because a naive parallel
 update of interacting spins is not a valid sampler (the reference's own
-`prange` variants, sa.pyx:266 / qmc.pyx:110, race by design). On TPU we
+`prange` variants, sa.pyx:266 / qmc.pyx:110, race by design). Here we
 instead partition the interaction graph into independent sets ("colors"):
 spins within one color share no coupling, so a whole color class can be
 updated simultaneously with exact Metropolis acceptance. Sweeping the colors

@@ -1,13 +1,13 @@
-"""Dense (fully-connected) Ising problems — the MXU path.
+"""Dense (fully-connected) Ising problems — the matmul path.
 
 For dense coupling matrices (Sherrington-Kirkpatrick-class), the padded
 neighbor table degenerates (maxnb = N-1) and graph coloring degenerates
 with it (a complete graph needs N colors, i.e. a fully sequential sweep).
-The right TPU engine is different: local fields are a (chains, N) x (N, B)
-matmul on the MXU, and the sweep runs block-sequentially with rank-1
+The right engine is different: local fields are a (chains, N) x (N, B)
+matmul, and the sweep runs block-sequentially with rank-1
 delayed updates (ops/dense_sweep.py) — the exact sequential Metropolis
 semantics of the reference (sa.pyx:81-99, systematic scan order) at
-matrix-unit throughput.
+matrix-product throughput.
 """
 
 from __future__ import annotations
@@ -17,6 +17,10 @@ import dataclasses
 import numpy as np
 import jax
 import jax.numpy as jnp
+
+# Couplings are arbitrary float32: a TF32 contraction (about three decimal
+# digits) would perturb every local field, dE and acceptance decision.
+_FULL_F32 = jax.lax.Precision.HIGHEST
 
 
 @jax.tree_util.register_dataclass
@@ -80,17 +84,17 @@ class DenseProblem:
 
     # ------------------------------------------------------------ interface
     def local_fields(self, s):
-        """sum_j J_ij s_j + h_i via MXU matmul; s: (..., N)."""
+        """sum_j J_ij s_j + h_i via matmul; s: (..., N)."""
         s = s.astype(self.J.dtype)
         return (
-            jnp.einsum("...n,nm->...m", s, self.J,
+            jnp.einsum("...n,nm->...m", s, self.J, precision=_FULL_F32,
                        preferred_element_type=jnp.float32)
             + self.h
         )
 
     def energy(self, s):
         s = s.astype(self.J.dtype)
-        f = jnp.einsum("...n,nm->...m", s, self.J,
+        f = jnp.einsum("...n,nm->...m", s, self.J, precision=_FULL_F32,
                        preferred_element_type=jnp.float32)
         return 0.5 * jnp.sum(f * s, axis=-1) + jnp.sum(self.h * s, axis=-1)
 

@@ -4,8 +4,8 @@ The reference ships one benchmark instance in `i j J_ij` triplet format
 (1-indexed; examples/ising_instances/santoro_80x80.txt) with a certified
 ground state. Its driver negates couplings on load
 (examples/santoro80.py:242-244) — that convention lives here, not in the
-solvers. We read benchmark instances from the reference checkout at runtime
-(data, not code); set MCS_TPU_INSTANCE_DIR to point elsewhere.
+solvers. The certified instance is data, not code, and is not shipped: set
+MCS_INSTANCE_DIR to the directory that holds santoro_80x80.txt.
 """
 
 from __future__ import annotations
@@ -16,8 +16,6 @@ import numpy as np
 
 from montecarlosolvers_tpu.models.ising import IsingProblem
 
-_FALLBACK_DIR = "/root/reference/examples/ising_instances"
-
 # Certified ground-state energy per spin for the 80x80 Gaussian instance
 # (Spin Glass Server certificate, santoro_80x80_answer.txt:24). The energy is
 # for the *negated* couplings convention used by the benchmark driver.
@@ -27,10 +25,10 @@ SANTORO_MAXNB = 4
 
 
 def _find_instance(name):
-    # env read per call so setting MCS_TPU_INSTANCE_DIR after import works
-    for d in (os.environ.get("MCS_TPU_INSTANCE_DIR", ""), _FALLBACK_DIR):
-        if d and os.path.isfile(os.path.join(d, name)):
-            return os.path.join(d, name)
+    # env read per call so setting MCS_INSTANCE_DIR after import works
+    d = os.environ.get("MCS_INSTANCE_DIR", "")
+    if d and os.path.isfile(os.path.join(d, name)):
+        return os.path.join(d, name)
     return None
 
 
@@ -61,7 +59,7 @@ def santoro_80x80(maxnb=SANTORO_MAXNB, lattice=False):
     path = _find_instance("santoro_80x80.txt")
     if path is None:
         raise FileNotFoundError(
-            "santoro_80x80.txt not found; set MCS_TPU_INSTANCE_DIR"
+            "santoro_80x80.txt not found; set MCS_INSTANCE_DIR"
         )
     rows, cols, vals = load_triplets(path, negate=True, one_indexed=True)
     if lattice:
@@ -125,7 +123,7 @@ def random_3d_lattice(L, rng=None, dist="pm1", periodic=True):
     This is the canonical landscape where replica cluster moves
     (Houdayer/ICM, solvers.pt.sample_icm) are known to pay: q = -1
     overlap domains stay non-percolating well below T_c in 3D, unlike
-    ferromagnet-style FK clusters (results/cluster_value). Returns
+    ferromagnet-style FK clusters (bench/cluster_value.py). Returns
     (problem, (rows, cols, vals)) with a degree-6 generic IsingProblem
     (greedy-colored; 2 colors on the even-L periodic / any open lattice).
     """
@@ -208,7 +206,7 @@ def sk_model(nspins, rng=None, dense=True):
     """Sherrington-Kirkpatrick fully-connected spin glass: J_ij ~
     N(0, 1/N) for all pairs.
 
-    dense=True (default) returns a DenseProblem — the MXU engine built for
+    dense=True (default) returns a DenseProblem — the matmul engine built for
     exactly this class (the padded-gather IsingProblem needs maxnb = N-1
     and N color phases, O(N^3) work per sweep). dense=False returns the
     generic IsingProblem for oracle/interop use at small N.

@@ -1,7 +1,7 @@
 """Ising problem representation: the sparse->padded "problem compiler".
 
 Re-designs the reference's neighbor-table format (tools.pyx:28-96,
-`GenerateNeighbors`) for TPU: the padded fixed-degree table maps to a
+`GenerateNeighbors`) for vector hardware: the padded fixed-degree table maps to a
 vectorized gather, the diagonal local-field convention (entries with
 neighbor-index == own-index, consumed at sa.pyx:89-91) is split out at
 compile time into a dense field vector `h` so the hot path is a pure
@@ -126,7 +126,7 @@ def generate_neighbors(nspins, J, maxnb, savepath=None):
 @jax.tree_util.register_dataclass
 @dataclasses.dataclass(frozen=True)
 class IsingProblem:
-    """Compiled Ising problem, ready for TPU sweeps.
+    """Compiled Ising problem, ready for device sweeps.
 
     Data fields (pytree leaves):
       nbr_idx:     (N, maxnb) int32, neighbor index per slot (self for pads).
@@ -134,7 +134,7 @@ class IsingProblem:
                    padding and for local-field slots (those are folded into h).
       h:           (N,) float32, local fields (diagonal of J).
       color_masks: (num_colors, N) bool, partition of spins into independent
-                   (non-interacting) sets — the TPU replacement for the
+                   (non-interacting) sets — the parallel replacement for the
                    reference's sequential shuffled sweep order (sa.pyx:71-79).
 
     Static fields:

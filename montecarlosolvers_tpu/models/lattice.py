@@ -1,10 +1,10 @@
-"""Structured 2D-lattice Ising problems — the TPU fast path.
+"""Structured 2D-lattice Ising problems — the lattice fast path.
 
 The benchmark instance (santoro 80x80, examples/ising_instances/) is a
 square lattice with right/down bonds; representing it as per-direction
 coupling planes turns the neighbor gather of the generic path
 (tools.pyx:28-96 format) into four `roll`+FMA ops — no gathers at all,
-which is what the VPU and the fused Pallas kernels want. Open boundaries
+only contiguous shifted reads. Open boundaries
 are encoded by zero couplings on the wrap edges, so periodic lattices come
 for free (nonzero wrap couplings).
 

@@ -3,7 +3,7 @@
 Builds `libmcs_native.so` from neighbors.cpp on first use (g++ -O3); every
 entry point degrades gracefully to the pure-NumPy fallbacks in models/ when
 the toolchain or the build is unavailable (returns None -> caller falls
-back). TPU compute never goes through this layer — it is host-side problem
+back). Device compute never goes through this layer — it is host-side problem
 compilation only (the analog of the reference's Cython tools module).
 """
 

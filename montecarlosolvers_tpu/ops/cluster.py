@@ -2,7 +2,7 @@
 clusters, re-formulated for parallel hardware.
 
 The reference grows clusters with a sequential stack (qmc.pyx:711-786,
-907-996, 1114-1221, 1400-1446, 1556-1612) — inherently serial. The TPU
+907-996, 1114-1221, 1400-1446, 1556-1612) — inherently serial. This
 formulation splits each cluster update into data-parallel stages:
 
   1. Bond draw: every candidate bond of the space-time interaction graph is
@@ -17,7 +17,7 @@ formulation splits each cluster update into data-parallel stages:
      cluster vs <10 ms for the BFS, VERDICT r3 #1). For the per-spin
      imaginary-time bath graphs of the WC2/WC3 variants (P x P, P <= 64):
      transitive closure by log2(P) squarings of the boolean adjacency,
-     batched over spins on the MXU.
+     batched over spins as matrix products.
   3. Flip the seed's component (Wolff), or Metropolis-accept the whole
      component with its exact set-flip energy (SW-bath variants).
 
@@ -280,10 +280,12 @@ def wolff_update(problem, confs, key, temp, gamma, b, rule="local",
 
 def _time_closure(adj):
     """Transitive closure of (..., P, P) boolean adjacency by repeated
-    squaring on the MXU (log2(P) matmuls)."""
+    squaring (log2(P) matmuls)."""
     P = adj.shape[-1]
     a = adj.astype(jnp.float32) + jnp.eye(P, dtype=jnp.float32)
     n_iter = max(1, int(np.ceil(np.log2(max(P, 2)))))
+    # operands are 0/1 with float32 accumulation: exact at DEFAULT
+    # precision (TF32 included), so no precision is pinned here
     for _ in range(n_iter):
         a = jnp.minimum(
             jnp.einsum("...ij,...jk->...ik", a, a, preferred_element_type=jnp.float32),
@@ -349,7 +351,8 @@ def bath_cluster_phase(problem, confs, key, temp, gamma, b, lookuptable,
     closure = _time_closure(adj)  # (N, P, P)
     seed_onehot = jax.nn.one_hot(seed_slices, slices, dtype=jnp.bool_)  # (N, P)
     comp = jnp.einsum("npq,np->nq", closure.astype(jnp.float32),
-                      seed_onehot.astype(jnp.float32)) > 0.0  # (N, P)
+                      seed_onehot.astype(jnp.float32),
+                      precision=jax.lax.Precision.HIGHEST) > 0.0  # (N, P)
     comp = comp.T & same  # (P, N)
 
     field = problem.local_fields(confs.astype(jnp.float32))
@@ -377,8 +380,8 @@ def sw_full_phase(problem, confs, key, temp, gamma, b, lookuptable,
 
     This replaces the round-3 per-seed formulation of WC3, which ran
     P x colors sequential Wolff phases, each paying a full (N, P, P)
-    bond-draw + MXU closure for ONE seed slice per line (210.8 ms/sweep at
-    P=40, N=6400 — VERDICT r3 #4). One SW phase updates all P slices of a
+    bond-draw + closure for ONE seed slice per line (VERDICT r3 #4). One
+    SW phase updates all P slices of a
     line for the cost of one closure; a sweep is `colors` phases total.
 
     Cluster consistency: reachability rows of `_time_closure` are identical
@@ -426,6 +429,7 @@ def sw_full_phase(problem, confs, key, temp, gamma, b, lookuptable,
     field = problem.local_fields(s)  # (P, N)
     site_de = -2.0 * b * field * s  # dE of flipping one site (field term)
     de = jnp.einsum("nkj,jn->kn", cl, site_de,
+                    precision=jax.lax.Precision.HIGHEST,
                     preferred_element_type=jnp.float32)  # (P, N)
 
     # One uniform per CLUSTER: index each slice's first cluster member.
@@ -494,21 +498,16 @@ def _label_components(active_full, nbr_idx, init=None, jump_every=0):
     component in the one pass.
 
     jump_every=0 (the SW/Wolff default): pure relaxation, no pointer
-    jumping — `labels[labels]` is a 1-D dynamic gather, which the TPU
-    scatter/gather unit serializes (~0.2-1.5 ms per jump at N=1024-4096
-    versus ~30 us for a whole relax round over the static-shape
-    neighbor-table gather; adding jumps every round made the SW sweep
-    11x SLOWER at the small component diameters FK draws produce).
+    jumping — `labels[labels]` is a 1-D dynamic gather over the whole
+    label array, where a relax round is one static-shape neighbor-table
+    gather; FK draws produce small component diameters.
 
     jump_every=k>0: k relax rounds then two pointer jumps per while
     iteration — Shiloach-Vishkin-style shortcutting that converges in
-    O(k + log diameter) iterations instead of O(diameter) rounds.
-    Measured HARDER at percolating-domain shapes too (v5e 2026-08-20,
-    M=48 rungs, N=6400, q = -1 fraction ~0.5, 100-160 relax rounds):
-    relax-only 44 ms vs 147-343 ms for k=8..2 — the batched 1-D dynamic
-    gather of one jump costs more than dozens of relax rounds, so the
-    option exists for exotic graphs (diameter >> 1000) but no in-repo
-    caller uses it. Regular-grid problems should use
+    O(k + log diameter) iterations instead of O(diameter) rounds. The
+    option exists for exotic graphs (diameter >> 1000); no in-repo
+    caller uses it, and its cost against plain relaxation has not been
+    measured on the GPU. Regular-grid problems should use
     _label_components_grid instead (rolls; 23 -> 5.4 ms/phase measured).
     Exact either way: labels only decrease, always point into their own
     component, and any relax-stable labeling is constant per component,
@@ -571,13 +570,10 @@ def classical_sw_sweep(problem, s, key, temp):
     Cost (generic path): one (N, maxnb) bond draw + one min-label relax
     round per hop of the largest component's eccentricity — about the
     price of ONE Wolff cluster's frontier BFS, but every cluster in the
-    lattice updates (measured v5e, 16 chains, critical FM: 1.8 ms/sweep
-    at L=32 and 11.5 ms at L=64 — versus 1.2 / 10.5 ms for a single
-    Wolff cluster on the same lattices). LatticeProblems route to
-    classical_sw_sweep_lattice (segmented row/column min-scans) when
-    passed here directly — measured SLOWER than relax-on-neighbor-tables
-    at L=32..128, so solvers/sa.anneal_sw converts lattices to the
-    generic form instead (see that docstring).
+    lattice updates. LatticeProblems route to classical_sw_sweep_lattice
+    (segmented row/column min-scans) when passed here directly;
+    solvers/sa.anneal_sw converts lattices to the generic form instead
+    (see that docstring).
     """
     if hasattr(problem, "j_right"):
         return classical_sw_sweep_lattice(problem, s, key, temp)
@@ -594,8 +590,7 @@ def classical_sw_sweep(problem, s, key, temp):
 
     # ghost bonds: satisfied field terms freeze their whole component.
     # Seeding ghosted sites with label -1 lets the min-relax itself carry
-    # the freeze to every member (no scatter-by-label needed — 1-D
-    # dynamic scatters serialize on the TPU gather unit).
+    # the freeze to every member (no scatter-by-label needed).
     de_h = 2.0 * problem.h * s
     u_h = jax.random.uniform(k_h, (nspins,))
     ghosted = u_h < _bond_prob(de_h, temp)
@@ -617,9 +612,7 @@ def grid_bonds_from_edges(shape, rows, cols, vals):
     where mask_a[x] = True iff the bond (x, x+e_a) exists with a nonzero
     coupling. This is the static input of houdayer_sweep_grid /
     _label_components_grid — the roll-based labeler that replaces the
-    (N, maxnb) gather relax with lane shifts (slope-measured 23 ms ->
-    5.4 ms per Houdayer phase at N=6400, M=48 rungs, v5e 2026-08-20; at
-    L=10 3D, N=1000, both labelers sit below dispatch noise).
+    (N, maxnb) gather relax with shifts of the whole grid.
 
     Raises ValueError on any edge that is not a unit grid step (fields,
     i.e. rows == cols diagonal entries, are ignored — Houdayer moves are
@@ -655,15 +648,11 @@ def grid_bonds_from_edges(shape, rows, cols, vals):
 
 def _label_components_grid(bond_masks, init, rounds_per_check=8):
     """Connected-component labels on a k-D grid bond graph via roll-based
-    min-label relaxation — the TPU-native form of _label_components for
-    regular grids: each round is 4k lane-shift rolls + mins instead of an
-    (N, maxnb) gather, which the scatter/gather unit serializes. Slope-
-    measured on the percolating overlap domains Houdayer produces
-    (q = -1 fraction ~0.5, 100-160 relax rounds): 5.4 ms/phase vs the
-    gather relax's 23 ms at (M=48, N=6400) on v5e 2026-08-20. Pointer
-    jumping was also measured (3-8x SLOWER overall at the same shapes
-    despite the round-count win — one batched 1-D dynamic gather costs
-    more than dozens of roll rounds), hence plain relaxation with
+    min-label relaxation — the form of _label_components for regular
+    grids: each round is 4k whole-grid rolls + mins instead of an
+    (N, maxnb) gather. The percolating overlap domains Houdayer produces
+    (q = -1 fraction ~0.5) take 100-160 relax rounds. Plain relaxation
+    (no pointer jumping: one batched 1-D dynamic gather per jump) with
     `rounds_per_check` rounds per convergence test.
 
     bond_masks: tuple over axes of bool grids, mask_a[x] = bond
@@ -731,8 +720,8 @@ def houdayer_sweep(problem, s1, s2, key, jump_every=0):
     """Isoenergetic (Houdayer) cluster move between two replicas sampled
     at the SAME temperature — the replica-cluster update the spin-glass
     literature adopted after ferromagnet-style FK clusters were shown to
-    percolate on frustrated instances (measured for this framework in
-    results/cluster_value; Houdayer 2001, and the ICM scheme of
+    percolate on frustrated instances (bench/cluster_value.py measures
+    this for the framework; Houdayer 2001, and the ICM scheme of
     Zhu-Ochoa-Katzgraber 2015 when mixed into parallel tempering).
 
     Construction: q_i = s1_i * s2_i; the q = -1 domain is cut into
@@ -813,14 +802,12 @@ def _label_components_lattice(link_left, link_up, init):
 
     Each round propagates the running minimum across ENTIRE connected
     row / column runs (log-depth scans), so round COUNT scales with the
-    cluster's turning number instead of its hop diameter. Measured on
-    v5e, however, the per-round constant of XLA's associative_scan
-    lowering (doubled axes, flips, O(log n) slice/concat stages, x4
-    scans per round) outweighs the round savings at every size tried:
-    5.3 / 29.7 ms per sweep at L=32 / 64 critical FM versus 1.3 / 11.3
-    for the one-hop relax on neighbor tables. Kept as the opt-in
-    labeler it is (exact; union-find-oracle tested) and as the measured
-    record of why the generic relax is the default. Fixed point =
+    cluster's turning number instead of its hop diameter, at the
+    per-round constant of XLA's associative_scan lowering (doubled axes,
+    flips, O(log n) slice/concat stages, x4 scans per round); that
+    trade-off has not been measured on the GPU. Kept as the opt-in
+    labeler it is (exact; union-find-oracle tested); the generic relax
+    is the default. Fixed point =
     per-component min of `init` (frozen -1 seeds propagate like any
     other minimum).
     """

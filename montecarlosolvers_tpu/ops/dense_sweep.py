@@ -1,9 +1,9 @@
-"""Blocked-sequential Metropolis sweep for dense problems (MXU engine).
+"""Blocked-sequential Metropolis sweep for dense problems (matmul engine).
 
 The reference's sequential single-spin sweep (sa.pyx:81-99) is exact but
 serial; the colored-parallel transform (ops/metropolis.py) needs sparse
 structure. For fully-connected problems this module keeps the *sequential*
-semantics but restructures the work for the MXU:
+semantics but restructures the work into matrix products:
 
   * fields for a block of B spins = one (chains, N) x (N, B) matmul;
   * within the block, spins update one at a time, and each accepted flip
@@ -13,20 +13,19 @@ semantics but restructures the work for the MXU:
   * the next block's fields are recomputed fresh (all earlier flips are
     then reflected through the matmul).
 
-Per sweep: N/B matmuls (O(C N^2) MACs on the MXU) + N cheap vector
+Per sweep: N/B matmuls (O(C N^2) MACs) + N cheap vector
 micro-steps — versus O(N) full-field recomputes for the degenerate colored
 sweep. Exactness is validated by the dense Gibbs-histogram test.
 
-Throughput scaling (v5e, SK, B=128): the chain batch C is the free lever —
-the N sequential micro-steps amortize over chains, so rates climb from
-1.0e9 att/s at (N=1024, C=1024) to 2.1e9 at C=4096; at N=8192, C=1024 the
-engine sustains 9.1e8 att/s = 7.5e12 effective coupling-MACs/s. B=128
-(one MXU tile) beats larger blocks; every attempt touches all N couplings.
+Throughput scaling: the chain batch C is the free lever — the N
+sequential micro-steps amortize over chains; every attempt touches all N
+couplings. The block size B=128 and the chain counts have not been tuned
+on the GPU yet.
 
 Two options extend the engine:
   * shuffle=True — random-scan order (a fresh permutation per sweep),
     realized by permuting J/h/s up front so the matmul structure is kept;
-  * matmul_dtype=jnp.bfloat16 — halves the MXU cost per field matmul;
+  * matmul_dtype=jnp.bfloat16 — halves the bytes per field matmul;
     the sweep is then exact sequential Metropolis on the bf16-rounded
     problem (bitwise f32-identical when couplings are +/-1-valued).
 """
@@ -56,7 +55,7 @@ def dense_metropolis_sweep(dp, s, key, temp, block=128, shuffle=False,
       permuted order.
 
     matmul_dtype: storage/compute dtype for the J matmul and the in-block
-      rank-1 delayed updates (e.g. jnp.bfloat16 for 2x MXU throughput);
+      rank-1 delayed updates (e.g. jnp.bfloat16 for the tensor cores);
       accumulation stays float32 via preferred_element_type. The sweep is
       then EXACT sequential Metropolis on the dtype-rounded problem
       (J.astype(matmul_dtype)); for +/-1-valued couplings the rounding is
@@ -85,6 +84,10 @@ def dense_metropolis_sweep(dp, s, key, temp, block=128, shuffle=False,
     Np = N + pad
     u = jax.random.uniform(key, (C, Np))
     sm = s.astype(J.dtype) if matmul_dtype is not None else s
+    # float32 couplings need full float32 products (TF32 would round them
+    # to about three digits); matmul_dtype is the explicit low-precision
+    # route and keeps the default
+    precision = lax.Precision.HIGHEST if matmul_dtype is None else None
 
     def block_body(bi, carry):
         s, sm = carry
@@ -92,6 +95,7 @@ def dense_metropolis_sweep(dp, s, key, temp, block=128, shuffle=False,
         Jb = lax.dynamic_slice(J, (0, start), (Np, B))   # (Np, B)
         fb = (
             jnp.dot(sm if matmul_dtype is not None else s, Jb,
+                    precision=precision,
                     preferred_element_type=jnp.float32)
             + lax.dynamic_slice(h, (start,), (B,))
         )  # (C, B)

@@ -1,14 +1,14 @@
-"""Colored parallel Metropolis sweeps — the TPU sweep engine.
+"""Colored parallel Metropolis sweeps — the data-parallel sweep engine.
 
 Replaces the reference's sequential shuffled single-spin sweep
 (sa.pyx:71-99): one sweep = `num_colors` fully-vectorized phases; within a
 phase every spin of one independent set is updated simultaneously with exact
 Metropolis acceptance. Valid sampler for the same Gibbs measure, race-free,
-and maps directly onto the VPU (gather + FMA + select) with no per-spin
-control flow.
+and maps directly onto vector units (gather + FMA + select) with no
+per-spin control flow.
 
 All functions are pure; batching over chains is a plain leading-dim batch
-(the TPU analog of the reference's OpenMP read-parallelism, svmc.pyx:624).
+(the analog of the reference's OpenMP read-parallelism, svmc.pyx:624).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Path-integral QMC sweep ops (Martonak–Santoro–Tosatti protocol).
 
-TPU re-design of the reference PIQMC kernels (qmc.pyx:25-609):
+Data-parallel re-design of the reference PIQMC kernels (qmc.pyx:25-609):
 
   * State layout is slices-major: confs (..., P, N). The Trotter axis is a
     periodic ring (qmc.pyx:126-138); nearest-slice couplings are `jnp.roll`
@@ -14,7 +14,7 @@ TPU re-design of the reference PIQMC kernels (qmc.pyx:25-609):
     slice-sequential like the reference — spins of one line interact across
     every slice pair, so slices can't be batched into one phase — but each
     slice update is a colored vector phase, and the bath field is one
-    (P,) x (P, N) contraction (MXU-friendly matmul for the full sweep).
+    (P,) x (P, N) contraction (a matmul for the full sweep).
   * Global spin-line moves (qmc.pyx:405-438) reduce over the Trotter axis
     (J_perp terms cancel for a whole-line flip) and update a full spatial
     color class of lines in parallel.
@@ -35,6 +35,11 @@ import jax.numpy as jnp
 from montecarlosolvers_tpu.models.coloring import ring_coloring
 from montecarlosolvers_tpu.ops.metropolis import metropolis_accept, _color_loop
 from montecarlosolvers_tpu.schedules import jperp as jperp_of
+
+# Bath rows are arbitrary float32 (the lookup table): a TF32 contraction
+# (about three decimal digits) would perturb the bath field, dE and the
+# acceptance decisions, so every bath contraction asks for full float32.
+BATH_PRECISION = jax.lax.Precision.HIGHEST
 
 
 def slice_color_masks(slices):
@@ -130,7 +135,8 @@ def dissipative_local_sweep(problem, confs, key, temp, gamma, b, bath_mat):
         )
         # Bath field for slice k: row k of the bath matrix against all slices.
         row = jax.lax.dynamic_index_in_dim(bath_mat, k, axis=0, keepdims=False)
-        bath_field = jnp.einsum("p,...pn->...n", row, confs)
+        bath_field = jnp.einsum("p,...pn->...n", row, confs,
+                                precision=BATH_PRECISION)
         u_k = jax.lax.dynamic_index_in_dim(u, k, axis=-2, keepdims=False)
 
         def phase(c, s_k):
@@ -178,7 +184,8 @@ def dissipative_colored_sweep(problem, confs, key, temp, gamma, b, bath_mat):
         field = problem.local_fields(confs)
         s_up = jnp.roll(confs, 1, axis=-2)
         s_dn = jnp.roll(confs, -1, axis=-2)
-        bath = jnp.einsum("kp,...pn->...kn", bath_mat, confs)
+        bath = jnp.einsum("kp,...pn->...kn", bath_mat, confs,
+                          precision=BATH_PRECISION)
         de = (
             b_coeff * confs * field
             + 2.0 * confs * jp * (s_up + s_dn)

@@ -47,6 +47,7 @@ import jax
 import jax.numpy as jnp
 
 from montecarlosolvers_tpu.ops.metropolis import metropolis_accept
+from montecarlosolvers_tpu.ops.piqmc import BATH_PRECISION
 from montecarlosolvers_tpu.ops.svmc_ops import z_projection_from_cos
 from montecarlosolvers_tpu.schedules import jperp as jperp_of
 
@@ -515,8 +516,10 @@ def qmc_bath_split_sweep(sl, a, b, key, temp, gamma, bcur, bath_mat):
         # Bath field for slice k: row k of the (P, P) matrix against the
         # same half's lines (zero diagonal excludes the slice itself).
         row = jnp.take(bath_mat, k, axis=0)
-        bath_a = jnp.einsum("p,...pn->...n", row, a)
-        bath_b = jnp.einsum("p,...pn->...n", row, b)
+        bath_a = jnp.einsum("p,...pn->...n", row, a,
+                            precision=BATH_PRECISION)
+        bath_b = jnp.einsum("p,...pn->...n", row, b,
+                            precision=BATH_PRECISION)
         a_k, b_k = at(a, k), at(b, k)
         a_tr = at(a, up) + at(a, dn)
         b_tr = at(b, up) + at(b, dn)
@@ -595,8 +598,10 @@ def qmc_bath_split_colored_sweep(sl, xe, xo, ye, yo, key, temp, gamma, bcur,
     k1, k2, k3, k4 = jax.random.split(key, 4)
 
     def bath(m_even, a_even, m_odd, a_odd):
-        return jnp.einsum("qp,...pn->...qn", m_even, a_even) + jnp.einsum(
-            "qp,...pn->...qn", m_odd, a_odd
+        return jnp.einsum(
+            "qp,...pn->...qn", m_even, a_even, precision=BATH_PRECISION
+        ) + jnp.einsum(
+            "qp,...pn->...qn", m_odd, a_odd, precision=BATH_PRECISION
         )
 
     def upd(s, f_sp_h, tr, bf, k):
@@ -692,14 +697,10 @@ def qmc_anneal_split(problem, a_sched, b_sched, temp, confs, key,
     state_dtype: storage dtype of the scan carry (the four quarter
     arrays). Spins are exactly +/-1 and every dE/energy contraction
     promotes to float32 before touching the float32 couplings (the
-    spatial field is roll-based elementwise, no MXU pass), so bfloat16
-    storage produces BITWISE-identical trajectories to float32
-    (regression-tested) while halving the carry's VMEM footprint — at
-    benchmark scale (N=6400, P=40, local+global, v5e, 2026-08-18) the
-    float32 carry spills to HBM at 64 chains (9.3e9 att/s) where
-    bfloat16 stays VMEM-resident (3.2e10); peak throughput moves to
-    32 chains at 3.4e10 local attempts/s. Pass jnp.float32 to opt
-    out."""
+    spatial field is roll-based elementwise, no matrix product), so
+    bfloat16 storage produces BITWISE-identical trajectories to float32
+    (regression-tested) while halving the bytes the carry moves per
+    sweep. Pass jnp.float32 to opt out."""
     sl = build_split(problem)
     in_dtype = confs.dtype
     state = tuple(q.astype(state_dtype) for q in pack_qmc(sl, confs))

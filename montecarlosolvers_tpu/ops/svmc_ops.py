@@ -1,6 +1,6 @@
 """Spin-vector Monte Carlo sweep ops (classical O(2)-rotor annealing).
 
-TPU re-design of svmc.pyx:21-229: spins are angles theta in [0, pi]; a sweep
+Data-parallel re-design of svmc.pyx:21-229: spins are angles theta in [0, pi]; a sweep
 proposes new angles and Metropolis-accepts on
 
     dE = B * sum_j J_ij (cos th' - cos th_i) cos th_j      (z couplings)

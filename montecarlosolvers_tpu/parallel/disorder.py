@@ -5,9 +5,9 @@ The reference runs disorder realizations as separate processes; here the
 realization axis is a vmap axis over the problem's coupling leaves (the
 topology — neighbor indices and coloring — is shared, so the compiled
 program is identical per instance). Combined with chain batching this is
-the SURVEY.md §2.3 "multi-pod DCN axis for independent instance/disorder
-sweeps" at any scale: vmap on one chip, or shard the disorder axis over a
-mesh with parallel/mesh.py.
+the SURVEY.md §2.3 independent instance/disorder axis at any scale: vmap
+on one device, or shard the disorder axis over a mesh with
+parallel/mesh.py and parallel/multihost.py.
 """
 
 from __future__ import annotations

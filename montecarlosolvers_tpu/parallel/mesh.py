@@ -1,12 +1,16 @@
-"""Device-mesh helpers: the TPU replacement for the reference's process
+"""Device-mesh helpers: the replacement for the reference's process
 model (SURVEY.md §2.3 — the reference has shared-memory OpenMP only; here
-chips form a `jax.sharding.Mesh` and collectives ride ICI).
+devices form a `jax.sharding.Mesh` and XLA lowers the collectives).
+
+The mesh is a flat list of devices shaped by the algorithm alone: on one
+host the cards are peers joined all to all, so no axis order is favoured
+by the interconnect.
 
 Axes convention:
   "chains"  — independent annealing trajectories (data parallel; the analog
               of the reference's read-parallel OpenMP loop, svmc.pyx:624).
-  "replica" — Trotter imaginary-time slices (model parallel; ring topology
-              matches ICI nearest-neighbor — see parallel/trotter.py).
+  "replica" — Trotter imaginary-time slices (model parallel; each device
+              owns a block of the ring — see parallel/trotter.py).
 """
 
 from __future__ import annotations

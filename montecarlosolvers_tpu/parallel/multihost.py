@@ -1,22 +1,22 @@
-"""Multi-host (DCN) scaling: disorder realizations spread over hosts/pods.
+"""Multi-process scaling: disorder realizations spread over processes.
 
 The reference runs disorder realizations as separate OS processes on one
-machine (SURVEY.md §2.3 — its only backend is shared-memory OpenMP). The
-TPU-native equivalent is the SURVEY §5 "DCN axis for independent
-instance/disorder sweeps": disorder is embarrassingly parallel (zero
-collectives once sharded), so it belongs on the slow cross-pod DCN links,
-while chains/replica axes stay on ICI within each host's slice.
+machine (SURVEY.md §2.3 — its only backend is shared-memory OpenMP). Here
+disorder is a mesh axis: it is embarrassingly parallel (zero collectives
+once sharded), so it is the axis that may span processes (hosts), while
+the chains axis stays within each process's local devices. One process
+drives all the cards of its host; several processes are only needed
+across hosts.
 
 Three pieces:
 
-  * `initialize` — thin, idempotent wrapper over `jax.distributed.initialize`
-    (coordinator discovery via args or the standard env vars). On TPU pods
-    launched through the usual runtimes the call is argument-free.
+  * `initialize` — thin, idempotent wrapper over `jax.distributed.initialize`.
+    Pass coordinator_address / num_processes / process_id explicitly.
   * `dcn_mesh` — a ("disorder", "chains") mesh whose disorder axis spans
-    processes (DCN) and chains axis spans each process's local devices
-    (ICI), built with `mesh_utils.create_hybrid_device_mesh`. Single-process
-    fallback: reshape the local devices — which is how the virtual 8-CPU
-    test mesh exercises this exact code path (tests/test_parallel.py).
+    processes and chains axis spans each process's local devices.
+    Single-process: reshape the local devices — which is how the virtual
+    8-CPU test mesh exercises this exact code path
+    (tests/test_parallel.py).
   * `run_disorder_sharded` — stack same-topology problems
     (parallel/disorder.py), shard the coupling leaves + states + keys over
     "disorder" (and states over "chains"), and run the vmapped solver.
@@ -40,8 +40,8 @@ from montecarlosolvers_tpu.parallel.disorder import (
 
 def initialize(**kwargs):
     """Idempotent `jax.distributed.initialize`. Pass coordinator_address /
-    num_processes / process_id explicitly, or nothing on TPU pod runtimes
-    (auto-discovery). Returns (process_index, process_count)."""
+    num_processes / process_id explicitly. Returns (process_index,
+    process_count)."""
     try:
         jax.distributed.initialize(**kwargs)
     except RuntimeError:
@@ -51,21 +51,19 @@ def initialize(**kwargs):
 
 
 def dcn_mesh(disorder=None, chains=None, devices=None):
-    """A ("disorder", "chains") mesh with disorder across processes (DCN)
-    and chains across each process's local devices (ICI).
+    """A ("disorder", "chains") mesh with disorder across processes and
+    chains across each process's local devices.
 
     Single-process: reshapes `devices` (default all local) into a
     (disorder, chains) grid — the shape the virtual CPU test mesh uses.
     Multi-process: `disorder` must be a multiple of the process count (it
-    defaults to exactly the process count, one realization group per host);
-    the hybrid mesh builder keeps each disorder group's devices within one
-    process so the only cross-DCN traffic is the (nonexistent) disorder
-    collectives.
+    defaults to exactly the process count, one realization group per
+    process); devices are grouped by process, disorder-major, so each
+    disorder row is one process's local devices and the only
+    cross-process traffic is the (nonexistent) disorder collectives.
     """
     nproc = jax.process_count()
     if nproc > 1:
-        from jax.experimental import mesh_utils
-
         local = jax.local_device_count()
         if disorder is None:
             disorder = nproc
@@ -76,22 +74,8 @@ def dcn_mesh(disorder=None, chains=None, devices=None):
                 f"disorder={disorder} must be a multiple of the process "
                 f"count {nproc} so each realization group stays on one host"
             )
-        try:
-            dev = mesh_utils.create_hybrid_device_mesh(
-                mesh_shape=(disorder // nproc, chains),
-                dcn_mesh_shape=(nproc, 1),
-            )
-        except ValueError:
-            # Devices without slice topology (CPU backends — the
-            # multi-process validation harness, tests/multihost_worker.py)
-            # carry no slice_index for the hybrid builder to group by.
-            # Group by process explicitly: disorder-major rows = each
-            # process's local devices, the same DCN-outer layout the
-            # hybrid builder produces on pods.
-            devs = sorted(
-                jax.devices(), key=lambda d: (d.process_index, d.id)
-            )
-            dev = np.array(devs).reshape(disorder, chains)
+        devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
+        dev = np.array(devs).reshape(disorder, chains)
         return Mesh(dev, axis_names=("disorder", "chains"))
     devices = np.asarray(devices if devices is not None else jax.devices())
     if disorder is None:
@@ -108,7 +92,8 @@ def _gput(x, sharding):
     """device_put that also works on multi-process (non-addressable)
     shardings: every process passes the SAME full host value and
     make_array_from_callback places each process's addressable pieces —
-    the standard host-local -> global construction for DCN meshes."""
+    the standard host-local -> global construction for multi-process
+    meshes."""
     try:
         return jax.device_put(x, sharding)
     except ValueError:

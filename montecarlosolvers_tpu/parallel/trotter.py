@@ -5,8 +5,8 @@ The reference's Trotter loop is a serial array axis (qmc.pyx:99,
 confs (N, P)); its only "context scaling" knob is P (SURVEY.md §5). Here P
 becomes a mesh axis: each device owns a contiguous block of slices and the
 periodic nearest-slice J_perp coupling (qmc.pyx:126-138) is a halo exchange
-of one boundary slice per direction via `lax.ppermute` — a ring on a ring,
-the exact ICI topology match. Whole-line global moves (qmc.pyx:405-438)
+of one boundary slice per direction via `lax.ppermute` to the two ring
+neighbours, the only Trotter traffic per phase. Whole-line global moves (qmc.pyx:405-438)
 reduce their dE with a `psum`; the all-to-all bath term (qmc.pyx:270-273)
 uses an `all_gather` of the spin lines (the ring-attention-style pattern
 noted in SURVEY.md §5).
@@ -27,8 +27,8 @@ by the 3-sigma equilibrium test vs the single-device sequential bath
 engine in tests/test_parallel.py (round 5 — that test caught the
 p_local == 1 anti-alignment the old compile/run bar missed).
 
-Two engines (both validated on the virtual CPU mesh only — this
-environment has one real chip):
+Two engines (both validated on the virtual CPU mesh, and on four GPUs
+through `python chip_smoke.py --four-cards`):
 
   * `anneal_sharded` — generic masked engine on any problem graph; the
     halo exchange runs once per color phase ON PURPOSE: boundary slices
@@ -72,7 +72,7 @@ except ImportError:  # pragma: no cover
         return _shard_map_old(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs)
 
 from montecarlosolvers_tpu.ops.metropolis import metropolis_accept
-from montecarlosolvers_tpu.ops.piqmc import spacetime_num_phases
+from montecarlosolvers_tpu.ops.piqmc import BATH_PRECISION, spacetime_num_phases
 from montecarlosolvers_tpu.schedules import jperp as jperp_of
 from montecarlosolvers_tpu import schedules as sched_mod
 
@@ -178,7 +178,8 @@ def _sharded_dissipative_sweep(problem, bath_rows, confs_l, key, temp, gamma,
             full, (kglob + 1) % slices, axis=-2, keepdims=False
         )
         row = jnp.take(bath_rows, kglob, axis=0)  # (P,)
-        bath_field = jnp.einsum("p,...pn->...n", row, full)
+        bath_field = jnp.einsum("p,...pn->...n", row, full,
+                                precision=BATH_PRECISION)
         for c in range(problem.num_colors):
             field = problem.local_fields(s_k)
             de = (

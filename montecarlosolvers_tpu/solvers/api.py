@@ -76,7 +76,7 @@ def _auto_ladder(n, t_min, t_max):
     """Rung count so adjacent rungs' energy distributions overlap: rung
     ratio - 1 must scale like 1/sqrt(N) (see pt.geometric_ladder).
     c = 2.5 is calibrated by a measured table, not one anchor
-    (results/ladder_calibration, v5e 2026-08-20): the auto-sized ladder
+    (results/ladder_calibration): the auto-sized ladder
     lands swap rates 0.37-0.46 at N in {256, 1024, 6400, 16384} on 2D
     Gaussian lattices AND N in {256, 1024, 2048} on SK — every point
     inside the 20-60% target band (tests/test_api.py asserts the band
@@ -95,7 +95,7 @@ def solve(problem, method="sa", num_reads=64, sweeps=1000, seed=0, **kw):
       "sa_wolff" — classical annealing with one Wolff cluster per sweep
                 (local_sweeps=True mixes colored sweeps in); best for
                 ferromagnetic / weakly frustrated problems near
-                criticality (results/cluster_value/crossover.json).
+                criticality (bench/cluster_crossover.py).
       "sa_sw" — classical Swendsen-Wang (full-lattice cluster update per
                 sweep); same kw as sa_wolff.
       "piqmc" — MST path-integral QMC with global moves; kw: slices=20,

@@ -11,8 +11,8 @@ so the ensemble tracks the Gibbs distribution instead of falling out of
 equilibrium. Free byproduct: an unbiased estimator of free-energy
 differences, ln[Z(beta_end)/Z(beta_0)].
 
-TPU-first design: the population is the batch axis through the same
-engines solvers.sa uses (split-checkerboard for lattices, MXU blocked
+Design: the population is the batch axis through the same
+engines solvers.sa uses (split-checkerboard for lattices, matmul blocked
 for dense, masked colored otherwise), so the sweep hot path is identical
 to `sa.anneal` at equal population. The PA-specific work per step — an
 (R,) energy readout, a logsumexp, a cumsum and one row gather — is O(R)
@@ -526,8 +526,8 @@ def sample_piqmc(problem, gammas, temp, confs, key, mcsteps=1, b=1.0,
                  gamma0=None, ess_threshold=1.0, resample="systematic",
                  global_moves=False, collect_stats=False):
     """Quantum population annealing: PA resampling over the PIQMC
-    extended (path-integral) ensemble, the composition named unbuilt in
-    results/pa_value §3 (VERDICT r4). A population of R path
+    extended (path-integral) ensemble, the composition named unbuilt by
+    VERDICT r4 (bench/pa_value.py). A population of R path
     configurations (R, P, N) runs space-time PIQMC sweeps down the
     transverse-field schedule `gammas`; between steps each configuration
     is reweighted by the Gamma-dependence of its extended Boltzmann
@@ -702,8 +702,8 @@ def sample_piqmc_adaptive(problem, gamma_start, gamma_end, temp, confs, key,
     rather than in Gamma. J_perp inverts to Gamma in closed form
     (G = T_eff * atanh(exp(-2 Jp / T_eff))) for the sweeps.
 
-    Motivation (results/pa_value round 5): a FIXED 1000-step Gamma grid
-    at benchmark scale collapses the population (min ESS 0.4%) — the
+    Motivation (bench/pa_value.py, round 5): a FIXED 1000-step Gamma
+    grid at benchmark scale collapsed the population (min ESS 0.4%) — the
     kinetic-term spread across replicas makes uniform Gamma steps wildly
     non-uniform in ensemble distance. The adaptive grid is the
     principled schedule; its step count is then an honest measurement of

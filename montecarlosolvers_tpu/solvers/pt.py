@@ -1,6 +1,6 @@
 """Parallel tempering (replica exchange) — a production extension beyond
 the reference's capability surface (it has no replica-exchange component;
-SURVEY.md §2), designed TPU-first: the ladder is a batch axis through the
+SURVEY.md §2), designed for the accelerator: the ladder is a batch axis through the
 split-checkerboard engine, and exchanges permute temperature LABELS, not
 configurations — the (M, N) state arrays never move, only an (M,)
 replica_of_rung map does. That makes an accepted swap free of gathers and
@@ -211,9 +211,8 @@ def sample_piqmc(problem, gammas, temp, confs, key, nsweeps, b=1.0,
     use_split = split_ops.supports_split(problem, slices)
     if use_split:
         # production engine: the whole (M, P, N) ladder is one maskless
-        # split-checkerboard state with a per-rung J_perp vector — ~10x
-        # the vmapped generic engine at benchmark scale (measured in
-        # results/pt_value: 2.16 s -> 0.2 s for 500 sweeps at M=48, P=20)
+        # split-checkerboard state with a per-rung J_perp vector, in place
+        # of the vmapped generic engine
         sl = split_ops.build_split(problem)
         state = split_ops.pack_qmc(sl, confs)
 
@@ -309,8 +308,8 @@ def sample_icm(problem, temps, states, key, nsweeps, swap_every=1,
     (ops/cluster.houdayer_sweep — every q = -1 overlap domain coin-flips
     in both replicas). This is the cluster move that DOES work on spin
     glasses: the flipped domains live where the two replicas disagree,
-    so they never suffer the FK percolation failure measured in
-    results/cluster_value.
+    so they never suffer the FK percolation failure that
+    bench/cluster_value.py measures.
 
     Args:
       problem: LatticeProblem or generic IsingProblem (dense problems are

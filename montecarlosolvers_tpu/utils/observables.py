@@ -33,6 +33,7 @@ def replica_overlap_matrix(states):
     parameter diagnostics for the annealed ensemble."""
     s = states.astype(jnp.float32)
     n = s.shape[-1]
+    # ±1 operands with float32 accumulation are exact at DEFAULT precision
     return s @ s.T / n
 
 

@@ -1,8 +1,8 @@
-"""Worker process for the REAL multi-process DCN validation
+"""Worker process for the REAL multi-process validation
 (tests/test_disorder.py::TestMultiHost::test_two_process_dcn_bitwise and
 dryrun leg 6; VERDICT r4 missing #3): each worker joins a localhost
 jax.distributed coordination service on the CPU backend, builds the
-("disorder", "chains") hybrid mesh through dcn_mesh's nproc > 1 branch —
+("disorder", "chains") mesh through dcn_mesh's nproc > 1 branch —
 the code path that had never executed with more than one process — runs
 run_disorder_sharded, and bitwise-compares its ADDRESSABLE output shards
 against the full single-process vmap_disorder reference (disorder
@@ -44,10 +44,10 @@ def main():
     assert jax.local_device_count() == 4
     assert len(jax.devices()) == 4 * nproc
 
-    # the branch under test: nproc > 1 hybrid ("disorder", "chains") mesh
+    # the branch under test: nproc > 1 ("disorder", "chains") mesh
     mesh = multihost.dcn_mesh(disorder=nproc, chains=4)
     assert mesh.shape == {"disorder": nproc, "chains": 4}
-    # each disorder row must be one process's local devices (DCN-outer)
+    # each disorder row must be one process's local devices
     for row in mesh.devices:
         owners = {d.process_index for d in row}
         assert len(owners) == 1, owners

@@ -17,7 +17,11 @@ from montecarlosolvers_tpu.models.ising import IsingProblem
 from montecarlosolvers_tpu.models import instances
 from montecarlosolvers_tpu.ops import cluster as cluster_ops
 from montecarlosolvers_tpu import schedules
-from tests.test_qmc import extended_energy
+from montecarlosolvers_tpu.reference import (
+    enumerate_states as _enumerate_states,
+    extended_energy,
+    state_histogram,
+)
 
 
 def _two_spin_problem(j=0.9, h=(0.0, 0.0)):
@@ -30,15 +34,6 @@ def _two_spin_problem(j=0.9, h=(0.0, 0.0)):
     return IsingProblem.from_edges(2, rows, cols, vals, maxnb=2)
 
 
-def _enumerate_states(nspins, slices):
-    n = nspins * slices
-    states = []
-    for bits in range(1 << n):
-        s = np.array([(bits >> i) & 1 for i in range(n)]) * 2 - 1
-        states.append(s.reshape(slices, nspins).astype(np.float32))
-    return jnp.asarray(np.stack(states))
-
-
 def _exact_dist(prob, states, temp, gamma, b=1.0, lookuptable=None):
     teff = temp * states.shape[-2]
     es = np.asarray(
@@ -46,28 +41,6 @@ def _exact_dist(prob, states, temp, gamma, b=1.0, lookuptable=None):
     )
     w = np.exp(-es / teff)
     return w / w.sum()
-
-
-def _histogram(run_step, confs0, key, nsteps, burn, nspins, slices):
-    """Scan `run_step` over chains, index states by sign bits, histogram."""
-    n = nspins * slices
-    weights = jnp.asarray([1 << i for i in range(n)])
-
-    @jax.jit
-    def run(confs, key):
-        keys = jax.random.split(key, nsteps)
-
-        def body(c, k):
-            c = run_step(c, k)
-            bits = (c > 0).astype(jnp.int32).reshape(c.shape[0], n)
-            return c, bits @ weights
-
-        _, idxs = jax.lax.scan(body, confs, keys)
-        return idxs
-
-    idxs = np.asarray(run(confs0, key))[burn:]
-    counts = np.bincount(idxs.ravel(), minlength=1 << n)
-    return counts / counts.sum()
 
 
 class TestWolffExactGibbs:
@@ -103,7 +76,7 @@ class TestWolffExactGibbs:
         def step(c, k):
             return upd(c, jax.random.split(k, c.shape[0]))
 
-        p_emp = _histogram(step, confs0, jax.random.key(1), nsteps, burn, 2, slices)
+        p_emp = state_histogram(step, confs0, jax.random.key(1), nsteps, burn)
         tv = 0.5 * np.abs(p_emp - p_exact).sum()
         assert tv < 0.02, (tv, p_emp, p_exact)
 
@@ -131,7 +104,7 @@ class TestWolffExactGibbs:
         def step(c, k):
             return upd(c, jax.random.split(k, c.shape[0]))
 
-        p_emp = _histogram(step, confs0, jax.random.key(3), nsteps, burn, 2, slices)
+        p_emp = state_histogram(step, confs0, jax.random.key(3), nsteps, burn)
         tv = 0.5 * np.abs(p_emp - p_exact).sum()
         assert tv < 0.02, (tv, p_emp, p_exact)
 
@@ -165,7 +138,7 @@ class TestSWBathExactGibbs:
         def step(c, k):
             return sweep(c, jax.random.split(k, c.shape[0]))
 
-        p_emp = _histogram(step, confs0, jax.random.key(5), nsteps, burn, 2, slices)
+        p_emp = state_histogram(step, confs0, jax.random.key(5), nsteps, burn)
         tv = 0.5 * np.abs(p_emp - p_exact).sum()
         assert tv < 0.02, (tv, p_emp, p_exact)
 
@@ -779,8 +752,7 @@ class TestSpacetimeSWExactGibbs:
         def step(c, k):
             return upd(c, jax.random.split(k, c.shape[0]))
 
-        p_emp = _histogram(step, confs0, jax.random.key(11), nsteps, burn,
-                           2, slices)
+        p_emp = state_histogram(step, confs0, jax.random.key(11), nsteps, burn)
         tv = 0.5 * np.abs(p_emp - p_exact).sum()
         assert tv < 0.02, (tv, p_emp, p_exact)
 
@@ -804,8 +776,7 @@ class TestSpacetimeSWExactGibbs:
         def step(c, k):
             return upd(c, jax.random.split(k, c.shape[0]))
 
-        p_emp = _histogram(step, confs0, jax.random.key(13), nsteps, burn,
-                           2, slices)
+        p_emp = state_histogram(step, confs0, jax.random.key(13), nsteps, burn)
         tv = 0.5 * np.abs(p_emp - p_exact).sum()
         assert tv < 0.02, (tv, p_emp, p_exact)
 

@@ -1,4 +1,4 @@
-"""Dense (MXU) engine: exact sequential-Metropolis semantics via matmul
+"""Dense (matmul) engine: exact sequential-Metropolis semantics via matmul
 fields + rank-1 delayed updates. Gibbs exactness, oracle equivalence,
 brute-forced ground states, block-boundary handling."""
 

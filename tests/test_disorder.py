@@ -88,10 +88,9 @@ class TestQubo:
 
 
 class TestMultiHost:
-    """DCN-axis disorder sweeps (parallel/multihost.py). Multi-process DCN
-    cannot run here; the single-process hybrid-mesh fallback exercises the
-    identical sharding layout on the virtual 8-device mesh, with the same
-    bitwise-transparency bar as chain sharding."""
+    """Disorder-axis sweeps (parallel/multihost.py). The single-process
+    mesh exercises the identical sharding layout on the virtual 8-device
+    mesh, with the same bitwise-transparency bar as chain sharding."""
 
     @pytest.fixture(scope="class")
     def eight_devices(self):
@@ -139,7 +138,7 @@ class TestMultiHost:
     )
     def test_two_process_dcn_bitwise(self, tmp_path):
         """REAL multi-process validation (VERDICT r4 missing #3): two OS
-        processes join a localhost coordination service, build the hybrid
+        processes join a localhost coordination service, build the
         ("disorder", "chains") mesh through dcn_mesh's nproc > 1 branch,
         and each bitwise-checks its addressable run_disorder_sharded
         shards against the local full vmap reference

@@ -20,15 +20,3 @@ class TestTTS:
         assert np.isclose(tts, 100 * np.log(0.01) / np.log(0.5))
         # higher success -> lower TTS
         assert obs.time_to_solution(100, 0.9) < tts
-
-
-class TestSuggestChains:
-    def test_vmem_budget(self):
-        from montecarlosolvers_tpu.utils.profiling import suggest_chains
-
-        # 80x80 f32: ~468 chains at 12MB -> rounded to 464
-        n = suggest_chains(6400)
-        assert 256 <= n <= 512 and n % 8 == 0
-        # P=40 Trotter state: single-digit chains
-        nq = suggest_chains(6400, slices=40)
-        assert 1 <= nq <= 16

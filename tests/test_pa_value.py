@@ -1,7 +1,7 @@
 """Machinery test for the PA-value experiment harness
 (montecarlosolvers_tpu/bench/pa_value.py) on a tiny +-J lattice: every
 arm runs end-to-end on CPU and returns well-formed records. The physics
-claims live in results/pa_value/ (measured on TPU at benchmark scale).
+claims come from running the study at benchmark scale on the card.
 """
 
 import numpy as np

@@ -1,7 +1,7 @@
 """Machinery test for the PT-value experiment harness
 (montecarlosolvers_tpu/bench/pt_value.py) on a tiny +-J lattice: every
 arm runs end-to-end on CPU and returns well-formed records. The physics
-claims live in results/pt_value/ (measured on TPU at benchmark scale).
+claims come from running the study at benchmark scale on the card.
 """
 
 import numpy as np

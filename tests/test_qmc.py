@@ -11,22 +11,8 @@ from montecarlosolvers_tpu.models import instances
 from montecarlosolvers_tpu.solvers import sa, qmc
 from montecarlosolvers_tpu.ops import piqmc as piqmc_ops
 from montecarlosolvers_tpu import schedules
+from montecarlosolvers_tpu.reference import extended_energy
 from tests.test_sa import brute_force_ground
-
-
-def extended_energy(prob, confs, temp, gamma, b=1.0, lookuptable=None):
-    """Test oracle: total PIQMC Hamiltonian consistent with the kernel dE
-    conventions (qmc.pyx:114-143, 269-273):
-    E = B sum_k E_slice(k) - jperp sum_k s_k s_{k+1} - (teff/2) s L s."""
-    slices = confs.shape[-2]
-    teff = temp * slices
-    jp = schedules.jperp(gamma, teff)
-    e = b * jnp.sum(prob.energy(confs), axis=-1)
-    e = e - jp * jnp.sum(confs * jnp.roll(confs, -1, axis=-2), axis=(-1, -2))
-    if lookuptable is not None:
-        L = piqmc_ops.bath_matrix(lookuptable, slices)
-        e = e - 0.5 * teff * jnp.einsum("...pn,pq,...qn->...", confs, L, confs)
-    return e
 
 
 class TestLocalSweep:

@@ -7,7 +7,8 @@ samplers for the same Gibbs measures. This module implements the
 sequential algorithms directly from their defining equations as NumPy
 oracles, VECTORIZED over independent repetitions (each rep gets its own
 per-sweep permutation; the spin loop stays sequential with immediate
-updates — the defining semantics), and compares:
+updates — the defining semantics; montecarlosolvers_tpu/reference.py),
+and compares:
 
   * EQUILIBRIUM (fixed parameters, tail of a long run): both kernels have
     the SAME stationary distribution, so means must agree within pure
@@ -44,114 +45,13 @@ import pytest
 
 from montecarlosolvers_tpu.models import instances
 from montecarlosolvers_tpu.models.lattice import LatticeProblem
+from montecarlosolvers_tpu.reference import (
+    sequential_anneal,
+    sequential_piqmc_anneal,
+    sequential_svmc_anneal,
+    transient_gap,
+)
 from montecarlosolvers_tpu.solvers import sa, qmc, svmc
-
-
-# --------------------------------------------------------------------------
-# Sequential oracles (reference semantics, vectorized over reps)
-# --------------------------------------------------------------------------
-
-def _metropolis(de, temp, u):
-    """Reference accept rule on a batch: de <= 0, else u < exp(-de/T)
-    (sa.pyx:96-99). temp == 0 accepts downhill only."""
-    if temp <= 0:
-        return de <= 0.0
-    return (de <= 0.0) | (u < np.exp(np.minimum(-de / temp, 0.0)))
-
-
-def sequential_anneal(rng, s, nbr_idx, nbr_J, h, sched):
-    """sa.Anneal semantics (sa.pyx:71-99): per temperature, one sweep of
-    single-spin Metropolis in a fresh per-rep random permutation, updates
-    applied immediately. s: (reps, N), modified in place."""
-    reps, n = s.shape
-    r_ix = np.arange(reps)
-    for temp in sched:
-        orders = np.argsort(rng.random((reps, n)), axis=1)
-        u = rng.random((reps, n))
-        for t in range(n):
-            i = orders[:, t]
-            sv = s[r_ix[:, None], nbr_idx[i]]
-            field = np.einsum("rm,rm->r", nbr_J[i], sv) + h[i]
-            si = s[r_ix, i]
-            de = -2.0 * si * field
-            acc = _metropolis(de, temp, u[:, t])
-            s[r_ix, i] = np.where(acc, -si, si)
-    return s
-
-
-def sequential_piqmc_anneal(rng, confs, nbr_idx, nbr_J, h, a_sched, b_sched,
-                            temp, collect=None):
-    """qmc.QuantumAnnealGlobal semantics (qmc.pyx:97-143, 405-438): per
-    schedule step, per slice in order, single-spin Metropolis in a fresh
-    per-rep permutation with immediately-visible updates (intra-slice +
-    periodic Trotter-ring dE at T_eff = P*T), then sequential whole-line
-    flips whose dE sums intra-slice terms only (J_perp cancels).
-    confs: (reps, P, N), modified in place. `collect(confs)` is called
-    after every schedule step when given (equilibrium tails)."""
-    reps, P, n = confs.shape
-    teff = temp * P
-    r_ix = np.arange(reps)
-    p_ix = np.arange(P)
-    for gamma, B in zip(a_sched, b_sched):
-        jp = -(teff / 2.0) * np.log(np.tanh(gamma / teff))
-        for k in range(P):
-            up, dn = (k - 1) % P, (k + 1) % P
-            orders = np.argsort(rng.random((reps, n)), axis=1)
-            u = rng.random((reps, n))
-            for t in range(n):
-                i = orders[:, t]
-                sv = confs[r_ix[:, None], k, nbr_idx[i]]
-                field = np.einsum("rm,rm->r", nbr_J[i], sv) + h[i]
-                si = confs[r_ix, k, i]
-                tr = confs[r_ix, up, i] + confs[r_ix, dn, i]
-                de = -2.0 * B * si * field + 2.0 * jp * si * tr
-                acc = _metropolis(de, teff, u[:, t])
-                confs[r_ix, k, i] = np.where(acc, -si, si)
-        orders = np.argsort(rng.random((reps, n)), axis=1)
-        u = rng.random((reps, n))
-        for t in range(n):
-            i = orders[:, t]
-            sv = confs[
-                r_ix[:, None, None], p_ix[None, :, None],
-                nbr_idx[i][:, None, :],
-            ]  # (reps, P, maxnb)
-            fields = np.einsum("rm,rpm->rp", nbr_J[i], sv) + h[i][:, None]
-            line = confs[r_ix, :, i]  # (reps, P)
-            de = -2.0 * B * np.einsum("rp,rp->r", line, fields)
-            acc = _metropolis(de, teff, u[:, t])
-            confs[r_ix[:, None], p_ix[None, :], i[:, None]] = np.where(
-                acc[:, None], -line, line
-            )
-        if collect is not None:
-            collect(confs)
-    return confs
-
-
-def sequential_svmc_anneal(rng, theta, nbr_idx, nbr_J, h, a_sched, b_sched,
-                           temp):
-    """svmc.SpinVectorMonteCarlo semantics (svmc.pyx:92-117): per schedule
-    step, single-rotor Metropolis in a fresh per-rep permutation with
-    immediate updates — theta' = pi*u proposal, cosine z-fields, sine
-    transverse term, fixed-T accept. theta: (reps, N), in place."""
-    reps, n = theta.shape
-    r_ix = np.arange(reps)
-    for a, B in zip(a_sched, b_sched):
-        orders = np.argsort(rng.random((reps, n)), axis=1)
-        u_prop = rng.random((reps, n))
-        u_acc = rng.random((reps, n))
-        for t in range(n):
-            i = orders[:, t]
-            prop = np.pi * u_prop[:, t]
-            cos_nb = np.cos(theta[r_ix[:, None], nbr_idx[i]])
-            zfield = np.einsum("rm,rm->r", nbr_J[i], cos_nb) + h[i]
-            th_i = theta[r_ix, i]
-            de = (
-                B * (np.cos(prop) - np.cos(th_i)) * zfield
-                + a * (np.sin(th_i) - np.sin(prop))
-            )
-            acc = _metropolis(de, temp, u_acc[:, t])
-            theta[r_ix, i] = np.where(acc, prop, th_i)
-    return theta
 
 
 # --------------------------------------------------------------------------
@@ -193,11 +93,9 @@ def _assert_equilibrium_match(e_seq, e_ours, autocorr_discount=8.0,
 def _assert_transient_match(e_seq, e_ours, rel_tol=5e-3, label=""):
     """Equal-sweep anneal transients of two correct kernels: bounded by
     max(3 sigma, rel_tol * |mean|) — see module docstring."""
-    m1, m2 = e_seq.mean(), e_ours.mean()
-    se = np.sqrt(e_seq.var() / e_seq.size + e_ours.var() / e_ours.size)
-    bound = max(3.0 * se, rel_tol * abs(m1))
-    assert abs(m1 - m2) < bound, (label, m1, m2, se, bound)
-    assert 0.4 < e_seq.std() / max(e_ours.std(), 1e-9) < 2.5, label
+    gap, bound, std_ratio = transient_gap(e_seq, e_ours, rel_tol)
+    assert gap < bound, (label, e_seq.mean(), e_ours.mean(), bound)
+    assert 0.4 < std_ratio < 2.5, label
 
 
 # --------------------------------------------------------------------------

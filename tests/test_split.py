@@ -546,7 +546,7 @@ class TestSolverDispatch:
         assert np.isclose(best.min(), e_gs, atol=1e-3), (best.min(), e_gs)
 
     def test_qmc_bf16_state_bitwise_equals_f32(self, rng):
-        """The scan carry defaults to bfloat16 storage (VMEM residency,
+        """The scan carry defaults to bfloat16 storage (half the bytes,
         ops/split.qmc_anneal_split docstring). Spins are exactly +/-1 in
         bfloat16 and every dE/energy contraction promotes to float32
         before meeting the float32 couplings, so the trajectories must be

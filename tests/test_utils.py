@@ -4,6 +4,7 @@ profiling counters, and the MST harness's incremental checkpointing."""
 import os
 
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 
@@ -167,3 +168,68 @@ class TestValidateState:
         with pytest.raises(ValueError, match="different chunk size"):
             mst.piqmc_arm(prob, 20, 4, jax.random.key(0), slices=4,
                           chunk=4, cache_prefix=prefix)
+
+
+class TestPersistentCache:
+    """enable_persistent_cache: JAX_COMPILATION_CACHE_DIR wins untouched;
+    otherwise the checkout's fixed .xla_cache."""
+
+    def _recording(self, monkeypatch):
+        import jax
+
+        calls = {}
+        monkeypatch.setattr(jax.config, "update",
+                            lambda k, v: calls.__setitem__(k, v))
+        return calls
+
+    def test_env_dir_is_left_to_jax(self, monkeypatch, tmp_path):
+        from montecarlosolvers_tpu.utils.xla_cache import enable_persistent_cache
+
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        calls = self._recording(monkeypatch)
+        assert enable_persistent_cache() == str(tmp_path)
+        assert "jax_compilation_cache_dir" not in calls
+
+    def test_default_is_checkout_dir(self, monkeypatch):
+        from montecarlosolvers_tpu.utils import xla_cache
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        calls = self._recording(monkeypatch)
+        path = xla_cache.enable_persistent_cache()
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert path == os.path.join(repo, ".xla_cache") == xla_cache.CHECKOUT_CACHE_DIR
+        assert calls["jax_compilation_cache_dir"] == path
+        assert os.path.isdir(path)
+
+    def test_path_is_stable_across_calls(self, monkeypatch):
+        from montecarlosolvers_tpu.utils.xla_cache import enable_persistent_cache
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        self._recording(monkeypatch)
+        assert enable_persistent_cache() == enable_persistent_cache()
+
+
+class TestDevice:
+    def test_require_gpu_names_the_platform(self):
+        from montecarlosolvers_tpu.utils import device
+
+        with pytest.raises(device.NoGPUError, match="platform 'cpu'"):
+            device.require_gpu()
+        assert device.describe()["platform"] == "cpu"
+
+    def test_card_without_nvidia_smi(self, monkeypatch):
+        from montecarlosolvers_tpu.utils import device
+
+        monkeypatch.setenv("PATH", "")
+        assert device.card().startswith("unavailable")
+
+
+class TestFlipCounterBarrier:
+    def test_stop_waits_for_result(self):
+        import jax.numpy as jnp
+
+        fc = FlipCounter().start()
+        fc.add_sweeps(1, 16)
+        out = jnp.ones(16) * 2
+        fc.stop(out)
+        assert fc.elapsed > 0 and fc.rate > 0
